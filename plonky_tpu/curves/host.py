@@ -11,7 +11,10 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Optional
 
+import numpy as np
+
 from ..fields import host
+from ..fields.spec import digits_to_int
 from .spec import CurveSpec
 
 
@@ -108,3 +111,48 @@ def batch_to_affine_host(curve: CurveSpec, xs, ys, zs):
             zi = inv_map[z % p]
             out.append(AffinePoint(curve, x * zi % p, y * zi % p))
     return out
+
+
+def chain_msm_instance(curve: CurveSpec, n: int, seed: int,
+                       chain: int = 4096, scalar_bytes: Optional[int] = None):
+    """An n-point MSM instance whose oracle is ONE host scalar multiply.
+
+    The points follow a doubling chain of period `chain` (pts[i] =
+    2^(i % chain) * P0), so sum_i s_i pts[i] = (sum_i s_i 2^(i % chain)) P0.
+    Scalars are random digit vectors with the top digit clamped below p's,
+    so they are canonical with no per-int reduction; `scalar_bytes` keeps
+    only that many low digits instead.  Host prep is vectorized (a python
+    int loop over 2^22 points takes minutes).
+
+    Returns (xs, ys, scalars, expected): [D, n] int32 affine coordinate
+    digits, [Ds, n] int32 scalar digits and the expected AffinePoint.
+    """
+    rng = np.random.default_rng(seed)
+    chain = min(n, chain)
+    assert n % chain == 0, (n, chain)
+    p0 = mul(generator(curve), int(rng.integers(1, 1 << 62)))
+    pts, cur = [], p0
+    for _ in range(chain):
+        pts.append(cur)
+        cur = add(cur, cur)
+    reps = n // chain
+    xs = np.tile(np.stack([curve.base.to_digits(q.x) for q in pts], axis=-1),
+                 (1, reps))
+    ys = np.tile(np.stack([curve.base.to_digits(q.y) for q in pts], axis=-1),
+                 (1, reps))
+    sf = curve.scalar
+    Ds, k = sf.n_digits, sf.k_digits
+    dig = rng.integers(0, 256, (Ds, n), dtype=np.int64)
+    if scalar_bytes is not None:
+        dig[scalar_bytes:] = 0
+    else:
+        dig[k - 1] %= max(1, (sf.p - 1) >> (8 * (k - 1)))
+        dig[k:] = 0
+    # Sum the digit vectors per residue class (int64-safe), then one
+    # python-int reconstruction per class.
+    cls = dig.reshape(Ds, reps, chain).sum(axis=1)
+    total = 0
+    for j in range(chain):
+        total = (total + (digits_to_int(cls[:, j]) << j)) % sf.p
+    return (xs.astype(np.int32), ys.astype(np.int32),
+            dig.astype(np.int32), mul(p0, total))

@@ -3,7 +3,7 @@
 Replaces the reference's digit-multimap Yao method
 (reference: src/curve/curve_msm.rs:63-157, pointer-chasing and rayon-chunked)
 with a sort + segmented-scan bucket accumulation that is fully static-shaped
-and batched -- the TPU-native restructuring called for by SURVEY.md P2.
+and batched -- the data-parallel restructuring called for by SURVEY.md P2.
 
 Pipeline per window (all under one jit, windows processed by lax.scan):
   1. extract c-bit digits from canonical scalar bits
@@ -134,8 +134,6 @@ def _chunked_scan_parts(curve: CurveSpec, pts: cops.Point, flags: jnp.ndarray):
     not applicable and the caller must use jax.lax.associative_scan.
     Work is ~2N combines in ~3 kernel shapes regardless of N, with
     sequential depth W <= _CHUNK_MAX_DEPTH."""
-    from ..fields import pallas_kernels as pk
-
     combine = _seg_combine(curve)
     N = pts[0].shape[-1]
     lead = pts[0].shape[1:-1]
@@ -162,8 +160,7 @@ def _chunked_scan_parts(curve: CurveSpec, pts: cops.Point, flags: jnp.ndarray):
     init = (ident, jnp.zeros((1, *lead, C), flags.dtype))
 
     def step(state, x):
-        with pk.force_fusion(512):
-            new = combine(state, x)
+        new = combine(state, x)
         return new, new
 
     (tail_pts, tail_flags), (ys_pts, ys_flags) = jax.lax.scan(step, init, xs)
@@ -185,12 +182,9 @@ def _seg_scan_pair(curve: CurveSpec, pts: cops.Point, flags: jnp.ndarray):
     """Inclusive segmented scan of (point, first-flag) pairs, chunked.
 
     `jax.lax.associative_scan` is work-efficient but instantiates the
-    point-add combiner at ~2*log2(N) DISTINCT shrinking shapes -- each a
-    separate fused-kernel trace and Mosaic compile, which dominated MSM
-    build times.  The chunked form (`_chunked_scan_parts`) keeps the kernel
-    count constant."""
-    from ..fields import pallas_kernels as pk
-
+    point-add combiner at ~2*log2(N) DISTINCT shrinking shapes, each a
+    separate copy of the point-add graph to compile.  The chunked form
+    (`_chunked_scan_parts`) keeps the number of distinct shapes constant."""
     combine = _seg_combine(curve)
     parts = _chunked_scan_parts(curve, pts, flags)
     if parts is None:
@@ -204,10 +198,9 @@ def _seg_scan_pair(curve: CurveSpec, pts: cops.Point, flags: jnp.ndarray):
     def to_cw(x):  # [.., N] -> [.., C, W]
         return x.reshape(*x.shape[:-1], C, W)
 
-    with pk.force_fusion(512):
-        out_pts, out_flags = combine(
-            (tuple(t[..., None] for t in excl_pts), excl_flags[..., None]),
-            (tuple(to_cw(t) for t in incl_pts), to_cw(incl_flags)))
+    out_pts, out_flags = combine(
+        (tuple(t[..., None] for t in excl_pts), excl_flags[..., None]),
+        (tuple(to_cw(t) for t in incl_pts), to_cw(incl_flags)))
     out_pts = tuple(t.reshape(*t.shape[:-2], N) for t in out_pts)
     out_flags = out_flags.reshape(*out_flags.shape[:-2], N)
     return out_pts, out_flags
@@ -227,8 +220,6 @@ def _seg_scan_gather(curve: CurveSpec, pts: cops.Point, flags: jnp.ndarray,
     this halves the MSM's point-add count back to the classic
     one-add-per-point-per-window cost (reference work shape:
     src/curve/curve_msm.rs:102-157; here dense and static-shaped)."""
-    from ..fields import pallas_kernels as pk
-
     combine = _seg_combine(curve)
 
     def gather(t, idx):
@@ -247,8 +238,7 @@ def _seg_scan_gather(curve: CurveSpec, pts: cops.Point, flags: jnp.ndarray,
     g_incl_flags = gather(incl_flags, pos)
     g_excl = tuple(gather(t, chunk_idx) for t in excl_pts)
     g_excl_flags = gather(excl_flags, chunk_idx)
-    with pk.force_fusion(512):
-        out_pts, _ = combine((g_excl, g_excl_flags), (g_incl, g_incl_flags))
+    out_pts, _ = combine((g_excl, g_excl_flags), (g_incl, g_incl_flags))
     return out_pts
 
 
@@ -272,6 +262,139 @@ def _tree_reduce(curve: CurveSpec, pts: cops.Point) -> cops.Point:
     return (X[..., 0], Y[..., 0], Z[..., 0])
 
 
+def _window_rows(curve: CurveSpec, scalars: jnp.ndarray, c: int, G: int,
+                 signed: bool):
+    """Canonical scalars [Ds, *B, N] -> (digits, signs), each
+    [n_groups, G, N]: every (scalar, window) row, scalar-major (LSW first
+    within a scalar), padded with zero windows to a multiple of G."""
+    if signed:
+        digits, signs = scalar_window_digits_signed(curve.scalar, scalars, c)
+    else:
+        digits = scalar_window_digits(curve.scalar, scalars, c)  # [W, *B, N]
+        signs = jnp.ones_like(digits)
+    n_windows, N = digits.shape[0], digits.shape[-1]
+    K = _batch_size(digits.shape[1:-1])
+
+    def rows(t):
+        return jnp.moveaxis(t.reshape(n_windows, K, N), 0, 1) \
+            .reshape(K * n_windows, N)
+
+    digits, signs = rows(digits), rows(signs)
+    pad = (-K * n_windows) % G
+    if pad:
+        # pad with zero windows (bucket 0 is discarded; rows sliced off)
+        digits = jnp.concatenate(
+            [digits, jnp.zeros((pad, N), digits.dtype)], axis=0)
+        signs = jnp.concatenate(
+            [signs, jnp.ones((pad, N), signs.dtype)], axis=0)
+    return digits.reshape(-1, G, N), signs.reshape(-1, G, N)
+
+
+def _batch_size(lead) -> int:
+    K = 1
+    for d in lead:
+        K *= d
+    return K
+
+
+def _n_windows(curve: CurveSpec, c: int, signed: bool) -> int:
+    return -(-curve.scalar.bits // c) + (1 if signed else 0)
+
+
+def _canonical_points(curve: CurveSpec, points: cops.Point) -> cops.Point:
+    """Coordinates as canonical uint8 digits, the form the bucket gather
+    reads.  Canonical digits fit one byte, so the per-group [D, G, N]
+    gather moves 4x fewer bytes (it is the MSM's dominant pure-memory stage
+    at N >= 2^18), and canonical inputs are required for the uint8 cast
+    anyway (callers like the Halo fold pass loose-digit points).  uint8
+    inputs are taken as ALREADY canonical -- the fixed-base path
+    (`precompute_base`): a basis reused across calls (the prover's Pedersen
+    generators; reference src/curve/curve_msm.rs:16-52 amortizes
+    precomputation the same way) skips three canonicalize passes per
+    commitment."""
+    assert fspec.DIGIT_BITS <= 8, (
+        "uint8 coordinate gather assumes canonical digits fit one byte; "
+        f"DIGIT_BITS={fspec.DIGIT_BITS} needs a wider gather dtype")
+    if points[0].dtype == jnp.uint8:
+        return points
+    return tuple(fops.jitted('canonicalize', curve.base)(t).astype(jnp.uint8)
+                 for t in points)
+
+
+def _group_sum(curve: CurveSpec, points: cops.Point, dig: jnp.ndarray,
+               sgn: jnp.ndarray, c: int, signed: bool) -> cops.Point:
+    """Per-window sums of G windows: dig, sgn [G, N] -> a [D, G] point."""
+    G, N = dig.shape
+    n_buckets = (1 << (c - 1)) + 1 if signed else 1 << c
+    bucket_ids = jnp.arange(n_buckets)
+    order = jnp.argsort(dig, axis=-1)
+    d_sorted = jnp.take_along_axis(dig, order, axis=-1)
+    pts = tuple(jnp.take_along_axis(
+        jnp.broadcast_to(t[:, None, :], (t.shape[0], G, N)),
+        order[None], axis=-1).astype(jnp.int32) for t in points)
+    if signed:
+        s_sorted = jnp.take_along_axis(sgn, order, axis=-1)
+        # a negative digit contributes -P: negate Y on the gathered copy
+        pts = cops.select(s_sorted >= 0, pts, cops.neg(curve, pts))
+    first = jnp.concatenate([
+        jnp.ones((G, 1), jnp.int32),
+        (d_sorted[:, 1:] != d_sorted[:, :-1]).astype(jnp.int32)], axis=-1)
+    # last position of each bucket's run, per window row
+    pos = jax.vmap(lambda row: jnp.searchsorted(
+        row, bucket_ids, side='right'))(d_sorted) - 1      # [G, B]
+    lo = jax.vmap(lambda row: jnp.searchsorted(
+        row, bucket_ids, side='left'))(d_sorted)           # [G, B]
+    present = lo <= pos
+    ident = cops.identity(curve, (G, n_buckets))
+    gathered = _seg_scan_gather(curve, pts, first[None],
+                                jnp.clip(pos, 0, N - 1))
+    buckets = cops.select(present, gathered, ident)
+    # zero out bucket 0 (digit 0 contributes nothing)
+    buckets = cops.select(bucket_ids[None, :] > 0, buckets, ident)
+    # sum_j j * B_j via T_k = sum_{j>=k} B_j (reversed cumsum), then
+    # sum_j j*B_j = sum_{k>=0} T_k - T_0.  Both passes go through the
+    # CHUNKED scan (zero first-flags = one segment): the associative-
+    # scan + halving-tree form instantiated the point-add at
+    # ~2*log2(n_buckets) distinct shrinking shapes -- a separate
+    # compile each, which is what made windows > 8 (4096+ buckets)
+    # compile-prohibitive.  A constant shape count unlocks them.
+    zflags = jnp.zeros((1, G, n_buckets), jnp.int32)
+    rev = tuple(jnp.flip(t, axis=-1) for t in buckets)
+    Trev, _ = _seg_scan_pair(curve, rev, zflags)
+    T = tuple(jnp.flip(t, axis=-1) for t in Trev)
+    tot = _seg_scan_gather(curve, T, zflags,
+                           jnp.full((G, 1), n_buckets - 1))
+    t0 = tuple(t[..., 0] for t in T)
+    return cops.add(curve, tuple(t[..., 0] for t in tot),
+                    cops.neg(curve, t0))   # [D, G]
+
+
+def _horner(curve: CurveSpec, ws: cops.Point, c: int, n_windows: int,
+            lead) -> cops.Point:
+    """Combine per-window sums ws (leaves [D, n_groups*G], scalar-major
+    rows) across windows, batched over the K MSMs (MSW first)."""
+    K = _batch_size(lead)
+    ws = tuple(t[:, :K * n_windows].reshape(t.shape[0], K, n_windows)
+               for t in ws)
+    acc = tuple(t[..., n_windows - 1] for t in ws)   # [D, K]
+
+    def horner_step(j, acc):
+        # 2^c * acc via a rolled loop: each doubling is ONE instance of the
+        # point-double graph in the compiled program (an unrolled chain of
+        # c*G=32+ doublings made compile times explode).
+        acc = jax.lax.fori_loop(
+            0, c, lambda _i, q: cops.double(curve, q), acc)
+        w = n_windows - 2 - j
+        win = tuple(jax.lax.dynamic_index_in_dim(
+            t, w, axis=t.ndim - 1, keepdims=False) for t in ws)
+        return cops.add(curve, acc, win)
+
+    acc = jax.lax.fori_loop(0, n_windows - 1, horner_step, acc)
+    if lead:
+        return tuple(t.reshape(t.shape[0], *lead) for t in acc)
+    return tuple(t[..., 0] for t in acc)
+
+
 def msm(curve: CurveSpec, points: cops.Point, scalars: jnp.ndarray,
         window_bits: int = 8, window_group: int = 8,
         signed: bool = False) -> cops.Point:
@@ -282,136 +405,25 @@ def msm(curve: CurveSpec, points: cops.Point, scalars: jnp.ndarray,
     Pedersen basis, 6-9 scalar vectors).  Windows are processed
     `window_group` at a time: one batched argsort, one segmented scan and
     one bucket reduction over a [G, N] batch -- larger kernels amortize
-    launch overhead and fill the TPU lanes.  A batched multi-MSM feeds the
-    SAME group pipeline (its kernel shapes and compiled code are identical
-    to the single case -- batch scalars only multiply the group count) and
+    launch overhead and fill the device.  A batched multi-MSM feeds the
+    SAME group pipeline (batch scalars only multiply the group count) and
     batches the final Horner double-and-add across the B MSMs, so the
-    ~bits-of-p sequential batch-1 doublings (measured 46 ms/chip, purely
-    latency-bound) are paid once per CALL, not once per polynomial."""
+    ~bits-of-p sequential batch-1 doublings (latency-bound) are paid once
+    per CALL, not once per polynomial.
+
+    Traceable as one program (lax.scan over the groups); `msm_jit` runs the
+    same stages as separately compiled programs."""
     c = window_bits
-    if signed:
-        n_buckets = (1 << (c - 1)) + 1
-        digits, signs = scalar_window_digits_signed(curve.scalar, scalars, c)
-    else:
-        n_buckets = 1 << c
-        digits = scalar_window_digits(curve.scalar, scalars, c)  # [W, *B, N]
-        signs = jnp.ones_like(digits)
-    n_windows = digits.shape[0]
-    lead = digits.shape[1:-1]
-    N = digits.shape[-1]
-    K = 1
-    for d in lead:
-        K *= d
-
-    def rows(t):
-        # [W, K, N] -> [K*W, N], scalar-major so each scalar's windows stay
-        # contiguous (LSW first within a scalar)
-        return jnp.moveaxis(t.reshape(n_windows, K, N), 0, 1) \
-            .reshape(K * n_windows, N)
-
-    digits, signs = rows(digits), rows(signs)
-    W_total = K * n_windows
-    G = min(window_group, W_total)
-    pad = (-W_total) % G
-    if pad:
-        # pad with zero windows (bucket 0 is discarded; rows sliced off)
-        digits = jnp.concatenate(
-            [digits, jnp.zeros((pad, N), digits.dtype)], axis=0)
-        signs = jnp.concatenate(
-            [signs, jnp.ones((pad, N), signs.dtype)], axis=0)
-
-    bucket_ids = jnp.arange(n_buckets)
-
-    # Canonicalize coordinates once so leaf digits fit uint8: the per-group
-    # [D, G, N] gather then moves 4x fewer HBM bytes (the gather is the
-    # MSM's dominant pure-memory stage at N >= 2^18), and canonical inputs
-    # are required anyway for correctness of the uint8 cast (callers like
-    # the Halo fold pass loose-digit points).  uint8 inputs are accepted
-    # as ALREADY canonical -- the fixed-base fast path (`precompute_base`):
-    # a basis reused across calls (the prover's Pedersen generators,
-    # reference src/curve/curve_msm.rs:16-52 amortizes precomputation the
-    # same way) skips the three full canonicalize passes per commitment.
-    assert fspec.DIGIT_BITS <= 8, (
-        "uint8 coordinate gather assumes canonical digits fit one byte; "
-        f"DIGIT_BITS={fspec.DIGIT_BITS} needs a wider gather dtype")
-    if points[0].dtype != jnp.uint8:
-        points = tuple(fops.jitted('canonicalize', curve.base)(t)
-                       .astype(jnp.uint8) for t in points)
-
-    def group_sum(dig, sgn):
-        """dig, sgn: [G, N] -> per-window sums, a [.., G] point."""
-        order = jnp.argsort(dig, axis=-1)
-        d_sorted = jnp.take_along_axis(dig, order, axis=-1)
-        pts = tuple(jnp.take_along_axis(
-            jnp.broadcast_to(t[:, None, :], (t.shape[0], G, N)),
-            order[None], axis=-1).astype(jnp.int32) for t in points)
-        if signed:
-            s_sorted = jnp.take_along_axis(sgn, order, axis=-1)
-            # a negative digit contributes -P: negate Y on the gathered copy
-            pts = cops.select(s_sorted >= 0, pts, cops.neg(curve, pts))
-        first = jnp.concatenate([
-            jnp.ones((G, 1), jnp.int32),
-            (d_sorted[:, 1:] != d_sorted[:, :-1]).astype(jnp.int32)], axis=-1)
-        # last position of each bucket's run, per window row
-        pos = jax.vmap(lambda row: jnp.searchsorted(
-            row, bucket_ids, side='right'))(d_sorted) - 1      # [G, B]
-        lo = jax.vmap(lambda row: jnp.searchsorted(
-            row, bucket_ids, side='left'))(d_sorted)           # [G, B]
-        present = lo <= pos
-        ident = cops.identity(curve, (G, n_buckets))
-        gathered = _seg_scan_gather(curve, pts, first[None],
-                                    jnp.clip(pos, 0, N - 1))
-        buckets = cops.select(present, gathered, ident)
-        # zero out bucket 0 (digit 0 contributes nothing)
-        buckets = cops.select(bucket_ids[None, :] > 0, buckets, ident)
-        # sum_j j * B_j via T_k = sum_{j>=k} B_j (reversed cumsum), then
-        # sum_j j*B_j = sum_{k>=0} T_k - T_0.  Both passes go through the
-        # CHUNKED scan (zero first-flags = one segment): the associative-
-        # scan + halving-tree form instantiated the fused point-add at
-        # ~2*log2(n_buckets) distinct shrinking shapes -- a separate Mosaic
-        # compile each, which is what made windows > 8 (4096+ buckets)
-        # compile-prohibitive.  Constant kernel count unlocks them.
-        zflags = jnp.zeros((1, G, n_buckets), jnp.int32)
-        rev = tuple(jnp.flip(t, axis=-1) for t in buckets)
-        Trev, _ = _seg_scan_pair(curve, rev, zflags)
-        T = tuple(jnp.flip(t, axis=-1) for t in Trev)
-        tot = _seg_scan_gather(curve, T, zflags,
-                               jnp.full((G, 1), n_buckets - 1))
-        t0 = tuple(t[..., 0] for t in T)
-        return cops.add(curve, tuple(t[..., 0] for t in tot),
-                        cops.neg(curve, t0))   # [.., G]
-
-    def n_doublings(pt, k):
-        """2^k * pt via a rolled loop: each doubling is ONE instance of the
-        point-double graph in the compiled program (an unrolled chain of
-        c*G=32+ doublings made XLA/Mosaic compile times explode)."""
-        return jax.lax.fori_loop(
-            0, k, lambda _i, q: cops.double(curve, q), pt)
-
-    # Stage 1: per-window sums for ALL (scalar, window) rows.  One traced
-    # group_sum serves every group (lax.scan), so compile time does not
-    # grow with the batch.
-    groups = (digits.reshape((W_total + pad) // G, G, N),
-              signs.reshape((W_total + pad) // G, G, N))
-    _, ws = jax.lax.scan(lambda _c, gs: (None, group_sum(*gs)), None, groups)
-    # ws leaves: [n_grp, D, G] -> [D, n_grp*G] -> [D, K, W]
-    ws = tuple(jnp.moveaxis(t, 0, 1).reshape(t.shape[1], -1)[:, :W_total]
-               .reshape(t.shape[1], K, n_windows) for t in ws)
-
-    # Stage 2: Horner across windows, batched over the K MSMs (MSW first).
-    acc = tuple(t[..., n_windows - 1] for t in ws)   # [D, K]
-
-    def horner_step(j, acc):
-        acc = n_doublings(acc, c)
-        w = n_windows - 2 - j
-        win = tuple(jax.lax.dynamic_index_in_dim(
-            t, w, axis=t.ndim - 1, keepdims=False) for t in ws)
-        return cops.add(curve, acc, win)
-
-    acc = jax.lax.fori_loop(0, n_windows - 1, horner_step, acc)
-    if lead:
-        return tuple(t.reshape(t.shape[0], *lead) for t in acc)
-    return tuple(t[..., 0] for t in acc)
+    lead = scalars.shape[1:-1]
+    G = min(window_group, _batch_size(lead) * _n_windows(curve, c, signed))
+    points = _canonical_points(curve, points)
+    digits, signs = _window_rows(curve, scalars, c, G, signed)
+    _, ws = jax.lax.scan(
+        lambda _c, gs: (None, _group_sum(curve, points, *gs, c, signed)),
+        None, (digits, signs))
+    # ws leaves: [n_grp, D, G] -> [D, n_grp*G]
+    ws = tuple(jnp.moveaxis(t, 0, 1).reshape(t.shape[1], -1) for t in ws)
+    return _horner(curve, ws, c, _n_windows(curve, c, signed), lead)
 
 
 def precompute_base(curve: CurveSpec, points: cops.Point) -> cops.Point:
@@ -428,9 +440,35 @@ def precompute_base(curve: CurveSpec, points: cops.Point) -> cops.Point:
 @functools.lru_cache(maxsize=None)
 def msm_jit(curve: CurveSpec, window_bits: int, window_group: int = 8,
             signed: bool = False):
-    return jax.jit(functools.partial(msm, curve, window_bits=window_bits,
-                                     window_group=window_group,
-                                     signed=signed))
+    """`msm` as host-driven compiled stages: the large group program is
+    compiled once per (basis size, G) and called once per group of windows,
+    so a multi-MSM of any batch K reuses it; only the small digit and Horner
+    programs are compiled per K.  (One program for the whole MSM would be
+    compiled again for every K the prover uses -- 6, 9, 1, 7, 2.)"""
+    c = window_bits
+    W = _n_windows(curve, c, signed)
+    group = jax.jit(functools.partial(_group_sum, curve, c=c, signed=signed))
+
+    @functools.lru_cache(maxsize=None)
+    def stages(lead):
+        G = min(window_group, _batch_size(lead) * W)
+        rows = jax.jit(functools.partial(_window_rows, curve, c=c, G=G,
+                                         signed=signed))
+
+        def combine(ws):
+            ws = tuple(jnp.concatenate(t, axis=-1) for t in zip(*ws))
+            return _horner(curve, ws, c, W, lead)
+
+        return rows, jax.jit(combine)
+
+    def run(points, scalars):
+        rows, combine = stages(scalars.shape[1:-1])
+        points = _canonical_points(curve, points)
+        digits, signs = rows(scalars)
+        return combine([group(points, digits[g], signs[g])
+                        for g in range(digits.shape[0])])
+
+    return run
 
 
 def msm_chunked(curve: CurveSpec, points: cops.Point, scalars: jnp.ndarray,
@@ -441,13 +479,9 @@ def msm_chunked(curve: CurveSpec, points: cops.Point, scalars: jnp.ndarray,
     MSM is linear over its points, so an N-point MSM is the sum of
     independent MSMs over point chunks.  Above 2^chunk_log this loops the
     jitted 2^chunk_log program over slices instead of compiling (and
-    holding live in HBM) one giant graph: the per-group bucket gather
-    materializes [D, G, N] tensors, which at N=2^22, G=8 would be ~1 GB
-    per coordinate -- past a single chip's budget once scan intermediates
-    pile on -- while the chunked form reuses one already-compiled mid-size
-    program with BETTER points/s (measured on-chip: monolithic 2^20 runs
-    at 1.93e5 pts/s, 4 x 2^18 chunks at 2.34e5 -- the smaller working set
-    stays HBM-friendly; 2^22 via 2^18 chunks: 2.35e5 pts/s).  The
+    holding live in device memory) one giant graph: the per-group bucket
+    gather materializes [D, G, N] tensors, which at N=2^22, G=8 would be
+    ~1 GB per coordinate before scan intermediates pile on.  The
     per-chunk Horner tail is the only duplicated work."""
     N = points[0].shape[-1]
     C = 1 << chunk_log

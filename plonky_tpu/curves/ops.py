@@ -4,8 +4,8 @@ Replaces the reference's branchy affine/projective formulas
 (reference: src/curve/curve_adds.rs:5-128, which special-cases zero/equal/
 inverse points) with the COMPLETE projective formulas of Renes-Costello-Batina
 2015 (eprint 2015/1060, Algorithms 7 & 9 for a = 0).  Complete formulas have
-no exceptional cases, so they vectorize with zero control flow -- the correct
-TPU-native design (SURVEY.md section 7 "hard parts" #3).  Case-equivalence
+no exceptional cases, so they vectorize with zero control flow (SURVEY.md
+section 7 "hard parts" #3).  Case-equivalence
 against the reference's branchy semantics is covered by tests.
 
 A batched point is a (X, Y, Z) tuple of digit arrays [D, *batch]; the
@@ -14,7 +14,6 @@ identity is (0, 1, 0).
 
 from __future__ import annotations
 
-import functools
 from typing import Tuple
 
 import jax.numpy as jnp
@@ -77,62 +76,9 @@ def _ps(f, *terms) -> _LV:
 
 
 def add(curve: CurveSpec, p1: Point, p2: Point) -> Point:
-    """Complete projective addition, RCB15 Algorithm 7 (a = 0).
-
-    On TPU with a lane-aligned batch the whole formula runs as ONE fused
-    Pallas kernel (see _fused_point_op); otherwise lazy adds + 9 fused
-    product-sum reductions keep the traced graph per batched point-add
-    small."""
-    fused = _fused_point_op(curve, _add_body, [*p1, *p2])
-    if fused is not None:
-        return fused
-    return _add_body(curve, p1, p2)
-
-
-@functools.lru_cache(maxsize=None)
-def _fused_point_jit(curve: CurveSpec, body, n_arrays: int, D: int):
-    """A cached jax.jit wrapper around the fused point kernel.  The Pallas
-    kernel body re-traces the full formula with UNROLLED in-kernel
-    convolutions (~30k jnp ops per point add), so tracing it anew at every
-    call site made big graphs (MSM: ~60 sites) take an hour to trace and
-    compile.  Going through one cached jit per (curve, body) means pjit's
-    signature cache traces each shape ONCE and every other call site emits
-    a single call eqn referencing the same subgraph."""
-    import jax
-    from ..fields import pallas_kernels as pk
-    n_pts = n_arrays // 3
-
-    def kernel_body(ins):
-        pts = [tuple(ins[3 * k:3 * k + 3]) for k in range(n_pts)]
-        return list(body(curve, *pts))
-
-    return jax.jit(
-        lambda *flat: pk.fused_composite(kernel_body, list(flat), 3, D))
-
-
-def _fused_point_op(curve: CurveSpec, body, arrays):
-    """Run a point-formula body as one fused Pallas kernel when applicable.
-    arrays: the coordinate arrays (each [D, *batch], batches broadcastable).
-    Returns None when the fused path does not apply."""
-    import jax
-
-    if jax.default_backend() != "tpu":
-        return None
-    from ..fields import pallas_kernels as pk
-    batch = jnp.broadcast_shapes(*[a.shape[1:] for a in arrays])
-    B = 1
-    for d in batch:
-        B *= d
-    if not pk.fusion_applicable(B):
-        return None
-    D = arrays[0].shape[0]
-    flat = [jnp.broadcast_to(a, (a.shape[0], *batch)).reshape(a.shape[0], B)
-            for a in arrays]
-    out = _fused_point_jit(curve, body, len(arrays), D)(*flat)
-    return tuple(o.reshape(D, *batch) for o in out)
-
-
-def _add_body(curve: CurveSpec, p1: Point, p2: Point) -> Point:
+    """Complete projective addition, RCB15 Algorithm 7 (a = 0): lazy adds
+    plus 9 fused product-sum reductions keep the traced graph of a batched
+    point add small."""
     f = curve.base
     b3 = 3 * curve.b % f.p
     X1, Y1, Z1 = (_LV(f, t) for t in p1)
@@ -161,15 +107,7 @@ def _add_body(curve: CurveSpec, p1: Point, p2: Point) -> Point:
 
 
 def double(curve: CurveSpec, p: Point) -> Point:
-    """Complete projective doubling, RCB15 Algorithm 9 (a = 0); fused into
-    one Pallas kernel on TPU (see add)."""
-    fused = _fused_point_op(curve, _double_body, list(p))
-    if fused is not None:
-        return fused
-    return _double_body(curve, p)
-
-
-def _double_body(curve: CurveSpec, p: Point) -> Point:
+    """Complete projective doubling, RCB15 Algorithm 9 (a = 0)."""
     f = curve.base
     b3 = 3 * curve.b % f.p
     X, Y, Z = (_LV(f, t) for t in p)

@@ -2,14 +2,15 @@
 
 Every function here operates on arrays of shape ``[L, *batch]`` where axis 0
 holds little-endian 8-bit digits stored as int32 and the trailing axes are an
-arbitrary batch.  Putting the batch last keeps it in the TPU lane dimension.
+arbitrary batch.  Putting the batch last makes it the contiguous (minor)
+dimension, so every digit row is one coalesced vector.
 
 Replaces the reference's u64 Montgomery engine (reference:
 src/field/monty.rs:66-160, src/bigint/bigint_arithmetic.rs) with a
 convolution + fold-matrix + carry-lookahead formulation:
 
-* multiplication  = digit convolution (VPU madds)
-* modular fold    = matmul against precomputed ``2^(8i) mod p`` digit rows
+* multiplication  = digit convolution (int32 multiply-adds)
+* modular fold    = contraction against precomputed ``2^(8i) mod p`` digit rows
 * exact carrying  = O(log D) carry-lookahead via ``lax.associative_scan``
                     (never a sequential per-digit ripple)
 * canonical form  = exact Barrett reduction (HAC 14.42) at boundaries
@@ -40,9 +41,10 @@ INT32_SAFE = (1 << 31) - 1
 # [0, 511] instead of fully carrying to [0, 255]: the exact carry-lookahead
 # (two log-depth cummax scans, the most expensive part of every reduction)
 # then runs only at observation boundaries (canonicalize), not between
-# chained muls/adds.  511 is the largest bound that keeps the digit
-# convolution f32-exact: min(La, Lb) * 511 * 511 < 2^24 for all supported
-# field sizes (D <= 50 for BLS12-377's 377-bit base field).
+# chained muls/adds.  With digits <= 511 a digit convolution sums at most
+# min(La, Lb) * 511^2 < 2^24 (D <= 50 for BLS12-377's 377-bit base field),
+# far inside int32, so a product of two working-form values needs no carry
+# round before its convolution.
 WORK_DB = 2 * DIGIT_MASK + 1
 
 
@@ -89,29 +91,10 @@ def _carry_lookahead(x: jnp.ndarray) -> jnp.ndarray:
     idx = jnp.arange(L, dtype=jnp.int32).reshape((L,) + (1,) * (s.ndim - 1))
     gen = jnp.where(s == DIGIT_BASE, idx, -1)
     kill = jnp.where(s < DIGIT_MASK, idx, -1)
-    G = _cummax_digits(gen)
-    K = _cummax_digits(kill)
+    G = jax.lax.cummax(gen, axis=0)
+    K = jax.lax.cummax(kill, axis=0)
     carry_in = _shift_up((G > K).astype(jnp.int32))
     return (s + carry_in) & DIGIT_MASK
-
-
-def _cummax_digits(x: jnp.ndarray) -> jnp.ndarray:
-    """Inclusive cumulative max along the (short) digit axis.
-
-    TPU (and inside Pallas kernels): unrolled Hillis-Steele shift-max scan
-    -- log2(L) pad+max steps beat lax.cummax's TPU lowering and are
-    Mosaic-compatible.  CPU: lax.cummax (the unrolled pads are SLOWER
-    there)."""
-    if not _on_tpu():
-        return jax.lax.cummax(x, axis=0)
-    L = x.shape[0]
-    d = 1
-    while d < L:
-        pad = [(d, 0)] + [(0, 0)] * (x.ndim - 1)
-        shifted = jnp.pad(x, pad, constant_values=-1)[:L]
-        x = jnp.maximum(x, shifted)
-        d *= 2
-    return x
 
 
 def normalize(x: jnp.ndarray, digit_bound: int, value_bound: int) -> Tuple[jnp.ndarray, int]:
@@ -128,80 +111,32 @@ def normalize(x: jnp.ndarray, digit_bound: int, value_bound: int) -> Tuple[jnp.n
     return x[:out_len], value_bound
 
 
-@functools.lru_cache(maxsize=None)
-def _on_tpu() -> bool:
-    return jax.default_backend() == "tpu"
-
-
-def conv_safe_limit() -> int:
-    """Static bound under which min(La,Lb)*da*db products may accumulate.
-
-    On TPU the convolution runs as an f32 Pallas kernel (TPU VPUs have no
-    fast int32 multiply), so sums must stay exactly representable in f32;
-    elsewhere the int32 grouped-conv limit applies."""
-    from .pallas_kernels import F32_EXACT
-    return F32_EXACT if _on_tpu() else INT32_SAFE
-
-
 def conv(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
     """Full digit convolution: out[k] = sum_{i+j=k} a[i] b[j].
 
-    Safe when min(La,Lb) * digit_bound(a) * digit_bound(b) <
-    conv_safe_limit().
+    Safe when min(La,Lb) * digit_bound(a) * digit_bound(b) < INT32_SAFE.
 
-    TPU: f32 Pallas kernel (exact under the f32 limit; int32 multiplies are
-    emulated on the VPU and ~100x slower).  Fallback (CPU, tiny or
-    lane-misaligned TPU batches): pad + constant-index gather + one einsum
-    contraction over the Lb axis -- 4 ops in the traced graph (a shift-add
-    loop would add O(D) ops per field multiply and make tracing the
-    protocol graphs pathologically slow) and O(B*La*Lb) work.  A grouped
-    1-D convolution (feature_group_count = B) is NOT safe here: XLA:CPU
-    expands grouped convs to a dense conv, i.e. O(B^2*La*Lb) work -- at
-    B = 8192 that is ~8e13 MACs, hours of wall-clock for ONE field mul
-    (diagnosed 2026-08-19; the old test sizes' B <= 512 hid it).
+    Outer product P[i, j] = a[i] b[j] over the batch, skewed so that row i
+    is shifted right by i (pad the columns, flatten, drop the tail, reshape:
+    Q[i, k] = P[i, k - i]), then summed over i.  Only elementwise ops,
+    pad/reshape/slice and one reduction: XLA fuses them into a single
+    reduction whose input is computed from a and b on the fly, so the
+    [La, Lout, B] intermediate is never written to memory, and the traced
+    graph stays a handful of ops per field multiply (a shift-add loop would
+    add O(D) ops per multiply and make the protocol graphs slow to trace).
+    A grouped 1-D convolution (feature_group_count = B) is NOT used: XLA:CPU
+    expands grouped convs to a dense conv, i.e. O(B^2*La*Lb) work.
     """
     La, Lb = a.shape[0], b.shape[0]
     batch = jnp.broadcast_shapes(a.shape[1:], b.shape[1:])
-    a = jnp.broadcast_to(a, (La, *batch))
-    b = jnp.broadcast_to(b, (Lb, *batch))
-    B = 1
-    for d in batch:
-        B *= d
-    if B == 0:  # empty batch (e.g. odd-length associative_scan slices)
-        return jnp.zeros((La + Lb - 1, *batch), dtype=jnp.int32)
-    if _on_tpu():
-        from . import pallas_kernels as pk
-        if pk.in_kernel():
-            return pk.conv_f32_unrolled(a, b)
-        if pk.pallas_conv_applicable(B):
-            out = pk.conv_pallas(a.reshape(La, B), b.reshape(Lb, B))
-            return out.reshape(La + Lb - 1, *batch)
-        # Small/misaligned TPU batches: f32 keeps the multiplies off the
-        # emulated int32 VPU path and is exact under the same F32_EXACT
-        # bound the callers enforce; HIGHEST forbids a bf16 rewrite.
-        out = _conv_gather(a.reshape(La, B), b.reshape(Lb, B), f32=True)
-        return out.reshape(La + Lb - 1, *batch)
-    out = _conv_gather(a.reshape(La, B), b.reshape(Lb, B), f32=False)
-    return out.reshape(La + Lb - 1, *batch)
-
-
-def _conv_gather(a: jnp.ndarray, b: jnp.ndarray, f32: bool) -> jnp.ndarray:
-    """Full conv of [La, B] x [Lb, B] as pad + constant-index gather + one
-    einsum contraction (4 graph ops, O(B*La*Lb) work): build
-    A[j, k] = a[k - j] (zero out of range) and contract sum_j A[j,k]*b[j]."""
-    if a.shape[0] < b.shape[0]:
-        a, b = b, a   # gather/contract over the shorter axis
-    La, Lb = a.shape[0], b.shape[0]
+    if La > Lb:
+        a, b, La, Lb = b, a, Lb, La   # reduce over the shorter axis
     Lout = La + Lb - 1
-    a_pad = jnp.pad(a, ((Lb - 1, Lb - 1), (0, 0)))
-    idx = ((Lb - 1) + jnp.arange(Lout)[None, :]
-           - jnp.arange(Lb)[:, None]).reshape(-1)     # [Lb*Lout]
-    A = a_pad[idx].reshape(Lb, Lout, a.shape[1])
-    if f32:
-        return jnp.einsum(
-            'jkn,jn->kn', A.astype(jnp.float32), b.astype(jnp.float32),
-            precision=jax.lax.Precision.HIGHEST).astype(jnp.int32)
-    return jnp.einsum('jkn,jn->kn', A, b)
+    prod = a.reshape(La, 1, *a.shape[1:]) * b.reshape(1, Lb, *b.shape[1:])
+    prod = jnp.broadcast_to(prod, (La, Lb, *batch))
+    prod = jnp.pad(prod, [(0, 0), (0, La)] + [(0, 0)] * len(batch))
+    skew = prod.reshape(La * (Lb + La), *batch)[:La * Lout]
+    return skew.reshape(La, Lout, *batch).sum(axis=0)
 
 
 def _value_bound_of_digits(L: int, digit_bound: int) -> int:
@@ -234,60 +169,36 @@ def _fold_value_bound(value_bound: int, cap: int, k: int, p: int,
 
 
 def reduce_work(spec: FieldSpec, x: jnp.ndarray, digit_bound: int,
-                value_bound: int, loose: bool = True,
-                _in_kernel: bool = False, _fold_rows_arr=None) -> jnp.ndarray:
+                value_bound: int, loose: bool = True) -> jnp.ndarray:
     """Reduce a bounded digit array to the working form, value preserved
     mod p.
 
     loose=True (chained device ops): D digits, each in [0, WORK_DB=511],
-    value < ~2*256^D.  Only cheap loose carry rounds and fold matmuls are
-    used -- NO exact carry-lookahead (the two log-depth cummax scans that
-    dominate the exact path run only at observation boundaries).
+    value < ~2*256^D.  Only cheap loose carry rounds and folds are used --
+    NO exact carry-lookahead (the two log-depth cummax scans that dominate
+    the exact path run only at observation boundaries).
 
     loose=False (boundaries, e.g. canonicalize entry): D digits in
     [0, 255], value < 256^D -- the exact form the Barrett reduction needs.
 
-    Static-bound-driven loop.  On TPU with a lane-aligned batch, the whole
-    loop runs as ONE fused Pallas kernel in VMEM (the XLA formulation is
-    HBM-traffic bound); `_in_kernel` marks the re-trace of this same body
-    inside that kernel.
+    Static-bound-driven loop: every step is decided from python-int bounds
+    at trace time.
     """
     D = spec.n_digits
-    if not _in_kernel and _on_tpu():
-        from . import pallas_kernels as pk
-        B = 1
-        for d in x.shape[1:]:
-            B *= d
-        if not pk.in_kernel() and pk.pallas_conv_applicable(B):
-            return pk.reduce_work_pallas(spec, x, digit_bound, value_bound,
-                                         loose)
     fold_rows = spec.fold_rows  # numpy [D+4, D]
     cap = 1 << (DIGIT_BITS * D)
-    # The fold einsum accumulates k products each <= db*255: f32-exact
-    # limit on TPU, int32 elsewhere.
-    fold_cap = conv_safe_limit()
+    # The fold accumulates k products each <= db*255 in int32.
+    fold_cap = INT32_SAFE
 
     def fold(x, k, hi_db):
+        """Fold digit rows >= D back into the low D digits: a broadcast
+        multiply against the constant ``2^(8i) mod p`` rows and a sum over
+        the k high rows (XLA fuses both into one reduction)."""
         assert k <= fold_rows.shape[0], (k, D)
         hi = x[D:]
-        if _fold_rows_arr is not None:
-            rows = _fold_rows_arr[:k]  # [k, D]
-        else:
-            from .pallas_kernels import kernel_const
-            rows = kernel_const(f"fold:{spec.name}:{k}",
-                                lambda k=k: fold_rows[:k])
-        if _on_tpu():
-            # f32 matmul (MXU-friendly; int32 muls are emulated on TPU).
-            # Exact: the caller's carry rounds keep k*hi_db*255 < fold_cap,
-            # and HIGHEST forces true-f32 accumulation -- the DEFAULT
-            # precision feeds the MXU bf16 inputs, which silently rounds
-            # digits above 256 (loose digits reach 511).
-            folded = jnp.einsum('k...,kd->d...', hi.astype(jnp.float32),
-                                rows.astype(jnp.float32),
-                                precision=jax.lax.Precision.HIGHEST
-                                ).astype(jnp.int32)
-        else:
-            folded = jnp.einsum('k...,kd->d...', hi, rows)
+        rows = jnp.asarray(fold_rows[:k]).reshape(
+            (k, D) + (1,) * (x.ndim - 1))
+        folded = (hi[:, None] * rows).sum(axis=0)
         return x[:D] + folded
 
     if loose:
@@ -376,8 +287,7 @@ def _work_vb(spec: FieldSpec) -> int:
 
 def _add_one_lsd(x: jnp.ndarray) -> jnp.ndarray:
     """x with 1 added to the least-significant digit row (slice+concat
-    instead of .at[0].add, which lowers to scatter-add -- unsupported in
-    Pallas TPU kernels)."""
+    instead of .at[0].add, which lowers to a scatter-add)."""
     return jnp.concatenate([x[:1] + 1, x[1:]], axis=0)
 
 
@@ -406,39 +316,10 @@ def neg(spec: FieldSpec, b: jnp.ndarray) -> jnp.ndarray:
 
 
 def mul(spec: FieldSpec, a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
-    fused = fused_elementwise(
-        spec, lambda ins: [_mul_body(spec, ins[0], ins[1])], [a, b],
-        tile=2048)
-    if fused is not None:
-        return fused[0]
-    return _mul_body(spec, a, b)
-
-
-def _mul_body(spec: FieldSpec, a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
     D = spec.n_digits
-    c = conv(a, b)  # [2D-1], digit bound D*511^2 < 2^24 (f32-exact)
+    c = conv(a, b)  # [2D-1], digit bound D*511^2 < 2^24
     vb = _work_vb(spec)
     return reduce_work(spec, c, D * WORK_DB * WORK_DB, vb * vb)
-
-
-def fused_elementwise(spec: FieldSpec, body, arrays, n_outs: int = 1,
-                      tile: int = 1024):
-    """Fuse a composite of field ops over broadcastable [L, *batch] arrays
-    into ONE Pallas kernel on TPU (all intermediates in VMEM).  Returns None
-    when not applicable (CPU, in-kernel already, tiny/misaligned batch)."""
-    if not _on_tpu():
-        return None
-    from . import pallas_kernels as pk
-    batch = jnp.broadcast_shapes(*[x.shape[1:] for x in arrays])
-    B = 1
-    for d in batch:
-        B *= d
-    if not pk.fusion_applicable(B):
-        return None
-    flat = [jnp.broadcast_to(x, (x.shape[0], *batch)).reshape(x.shape[0], B)
-            for x in arrays]
-    out = pk.fused_composite(body, flat, n_outs, spec.n_digits, tile=tile)
-    return tuple(o.reshape(spec.n_digits, *batch) for o in out)
 
 
 def square(spec: FieldSpec, a: jnp.ndarray) -> jnp.ndarray:
@@ -479,9 +360,7 @@ def sub_raw(spec: FieldSpec, a: jnp.ndarray, b: jnp.ndarray, db_b: int) -> jnp.n
     value is congruent to a - b mod p."""
     cb = max(8, db_b.bit_length())
     comp = ((1 << cb) - 1) - b
-    from .pallas_kernels import kernel_const
-    K = kernel_const(f"comp:{spec.name}:{cb}",
-                     lambda: _comp_constant(spec, cb)).reshape(
+    K = jnp.asarray(_comp_constant(spec, cb)).reshape(
         (spec.n_digits,) + (1,) * (a.ndim - 1))
     return a + comp + K
 
@@ -523,9 +402,8 @@ def product_sum(spec: FieldSpec, terms) -> jnp.ndarray:
             dcb = da
             vb = _value_bound_of_digits(a.shape[0], da)
         else:
-            # conv overflow guard (f32-exactness limit on TPU)
-            limit = conv_safe_limit()
-            while min(a.shape[0], b.shape[0]) * da * db > limit:
+            # conv overflow guard (int32)
+            while min(a.shape[0], b.shape[0]) * da * db > INT32_SAFE:
                 if da >= db:
                     a, da = normalize_partial(
                         a, da, _value_bound_of_digits(a.shape[0], da))
@@ -561,9 +439,7 @@ def product_sum(spec: FieldSpec, terms) -> jnp.ndarray:
     vb_tot = sum(vb for _, _, vb in parts)
     if k_fixup:
         Lm = max(L, D)
-        from .pallas_kernels import kernel_const
-        K = kernel_const(f"fixup:{spec.name}:{k_fixup}",
-                         lambda: int_to_digits(k_fixup, D)).reshape(
+        K = jnp.asarray(int_to_digits(k_fixup, D)).reshape(
             (D,) + (1,) * (total.ndim - 1))
         total = _pad_len(total, Lm) + _pad_len(K, Lm)
         db_tot += DIGIT_MASK
@@ -636,7 +512,7 @@ def inverse(spec: FieldSpec, x: jnp.ndarray) -> jnp.ndarray:
     """Multiplicative inverse via Fermat: x^(p-2).  inverse(0) = 0.
 
     Branch-free (the reference uses binary GCD, src/bigint/bigint_inverse.rs;
-    an exponentiation is the TPU-native equivalent: fixed-depth, batched).
+    an exponentiation is the batched equivalent: fixed-depth, no branches).
     """
     return exp_const(spec, x, spec.p - 2)
 

@@ -1,13 +1,13 @@
 """Field specification: static per-field constants and derived device tables.
 
-TPU-first data model (see SURVEY.md section 7): a field element is NOT a
+Batched data model (see SURVEY.md section 7): a field element is NOT a
 scalar; it is a little-endian vector of 8-bit digits stored as int32, with
-the digit axis FIRST (shape ``[D, *batch]``) so that large batches occupy
-the TPU lane dimension.  All arithmetic operates on such digit vectors with
+the digit axis FIRST (shape ``[D, *batch]``) so that large batches are the
+contiguous dimension.  All arithmetic operates on such digit vectors with
 explicit, statically-bounded carries; multiplication is a digit convolution
-followed by a "fold" against a precomputed reduction matrix (a matmul, which
-is the natural MXU-friendly formulation of modular reduction) plus a final
-exact Barrett pass for canonicalization.
+followed by a "fold" against a precomputed reduction matrix (a contraction,
+the batched formulation of modular reduction) plus a final exact Barrett
+pass for canonicalization.
 
 This replaces the reference's 4/6-limb u64 Montgomery engine
 (reference: src/field/monty.rs, src/bigint/bigint_arithmetic.rs) with a

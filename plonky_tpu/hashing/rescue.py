@@ -162,12 +162,12 @@ def _round_constant_digits(spec: FieldSpec, width: int, security_bits: int):
 def rescue_permutation(spec: FieldSpec, state, security_bits: int):
     """Batched Rescue permutation on device; state: width arrays [D,*batch].
 
-    TPU-native form: ONE ``lax.scan`` over rounds with the width axis
+    Batched form: ONE ``lax.scan`` over rounds with the width axis
     batched, so the compiled graph holds a single round body (two S-box
     exponent scans + two broadcast MDS products) however many rounds run.
     A direct transcription of the reference's round loop
     (src/rescue.rs:70-88) unrolled 2*rounds*width exponent chains into the
-    graph -- a multi-minute XLA/Mosaic compile for one permutation.
+    graph -- a multi-minute compile for one permutation.
     """
     import jax
     import jax.numpy as jnp

@@ -1,23 +1,23 @@
-"""Multi-host distributed runtime (SURVEY.md P8; VERDICT round 1 item 6).
+"""Multi-process distributed runtime (SURVEY.md P8).
 
 The reference has NO distributed backend (rayon shared-memory only,
-Cargo.toml:21); the TPU-native equivalent is the `jax.distributed` runtime:
-one process per host, all devices of the slice visible as one global device
-list, meshes laid out so the fast axis rides ICI within a slice and the
-slow axis rides DCN across slices.
+Cargo.toml:21); the equivalent here is the `jax.distributed` runtime: one
+process per host (or per card), all devices visible as one global device
+list, and a 2-D mesh whose inner axis spans the cards of one process and
+whose outer axis spans processes.  The cards of one host are joined all to
+all by NVLink, so the mesh follows the algorithm alone.
 
-Sharding plan for the BASELINE 2^22 workloads across H hosts x C chips:
+Sharding plan for the BASELINE 2^22 workloads across H processes x C cards:
 
 * FFT 2^22 (four-step, parallel/fft.py): factor n = n1 * n2 with
   n1 = H * C.  Stage 1 (per-shard n2-FFTs + twiddle multiply) is purely
-  local; the single transpose between stages is an all_to_all whose
-  ICI-internal traffic XLA routes over ICI and whose cross-host traffic
-  rides DCN exactly once -- (H-1)/H of the 2^22 * D * 4 bytes ~ 0.5 GB
-  crosses DCN per FFT, amortizable by batching polynomials.
-* MSM 2^22 (parallel/msm.py): points/scalars sharded over all H*C chips;
-  the bucket pipeline is local per chip and only the H*C partial points
+  local; the single transpose between stages is one all_to_all, which XLA
+  hands to NCCL -- (H*C-1)/(H*C) of the 2^22 * D * 4 bytes ~ 0.5 GB moves
+  per FFT, amortizable by batching polynomials.
+* MSM 2^22 (parallel/msm.py): points/scalars sharded over all H*C cards;
+  the bucket pipeline is local per card and only the H*C partial points
   (~KB) are combined -- communication-free to first order, so weak scaling
-  is bounded by the slowest chip, not the network.
+  is bounded by the slowest card, not the interconnect.
 * Transcript: host-side on process 0; challenge columns ([D, 1] arrays) are
   broadcast with the next dispatched computation (bytes, negligible).
 
@@ -63,16 +63,16 @@ def initialize(coordinator_address: str | None = None,
         pass
 
 
-def hybrid_mesh(ici_axis: str = "ici", dcn_axis: str = "dcn") -> Mesh:
-    """2-D mesh [dcn, ici]: the inner axis spans the devices of one process
-    (ICI-connected), the outer axis spans processes (DCN).  With a single
-    process this is a [1, n_local] mesh, so shardings written against the
-    two named axes run unchanged from 1 chip to H hosts."""
+def hybrid_mesh(local_axis: str = "local", proc_axis: str = "proc") -> Mesh:
+    """2-D mesh [proc, local]: the inner axis spans the devices of one
+    process, the outer axis spans processes.  With a single process this is
+    a [1, n_local] mesh, so shardings written against the two named axes
+    run unchanged from 1 card to H processes."""
     devs = jax.devices()
     n_proc = jax.process_count()
     per_proc = len(devs) // n_proc
     arr = np.array(devs).reshape(n_proc, per_proc)
-    return Mesh(arr, (dcn_axis, ici_axis))
+    return Mesh(arr, (proc_axis, local_axis))
 
 
 def process_local_slice(n_total: int) -> tuple[int, int]:

@@ -1,8 +1,8 @@
 """Mesh-sharded FFT (SURVEY.md P1: the reference parallelizes butterfly
-layers with rayon par_chunks; the TPU-native equivalents are (a) sharding
-the polynomial-batch axis across chips, and (b) the transpose-based
-four-step algorithm for a single huge domain, with the transpose riding the
-ICI as an all_to_all inside shard_map)."""
+layers with rayon par_chunks; the equivalents here are (a) sharding the
+polynomial-batch axis across cards, and (b) the transpose-based four-step
+algorithm for a single huge domain, with the transpose as one all_to_all
+inside shard_map)."""
 
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
 """Device mesh helpers (SURVEY.md P8: the reference has no distributed
-backend -- rayon shared-memory only; the TPU-native equivalent is a
-jax.sharding.Mesh over ICI with XLA collectives)."""
+backend -- rayon shared-memory only; the equivalent here is a
+jax.sharding.Mesh over the cards with XLA collectives)."""
 
 from __future__ import annotations
 

@@ -22,7 +22,7 @@ from ..fields import ops as fops
 from ..hashing.challenger import Challenger
 from ..hashing.hash_to_curve import blake_hash_usize_to_curve
 from ..poly.fft import FftPrecomputation, fft, ifft, powers_dyn
-from ..poly.polynomial import divide_by_z_h
+from ..poly.polynomial import z_h_inverses_dev
 from ..protocol import halo as halo_mod
 from ..protocol.circuit import CommitmentEngine, ints_to_device_matrix
 from ..protocol.plonk_util import reduce_with_powers, try_convert
@@ -145,7 +145,8 @@ def prove(curve: CurveSpec, f: List[int], t: List[int]) -> PlookupProof:
 
     vanishing = _vanishing_polynomial(sf, polys, z_poly, beta, gamma, alpha, n)
     from ..protocol.prover import _div_zh
-    quotient = cached_jit(_div_zh, sf, n + 1)(vanishing)
+    quotient = cached_jit(_div_zh, sf, n + 1)(vanishing,
+                                              *_quotient_consts(sf, n))
     quotient = quotient[:, :2 * n + 2]
     c_quotient = engine_big.commit_many(quotient[:, None], True, rand)[0]
 
@@ -182,6 +183,15 @@ def prove(curve: CurveSpec, f: List[int], t: List[int]) -> PlookupProof:
         c_h2=c_h2.commitment, c_z=c_z.commitment,
         c_quotient=c_quotient.commitment, openings=openings,
         halo_proof=halo_proof, n=n)
+
+
+@functools.lru_cache(maxsize=None)
+def _quotient_consts(sf, n: int):
+    """Runtime buffers for quotient = vanishing / Z_H on the 4(n+1) domain:
+    1/Z_H on the coset, then the forward and inverse FFT tables."""
+    pre4 = FftPrecomputation(sf, 4 * (n + 1))
+    return ((z_h_inverses_dev(sf, n + 1, 4 * (n + 1)),)
+            + pre4.runtime_tables(False) + pre4.runtime_tables(True))
 
 
 @functools.lru_cache(maxsize=None)

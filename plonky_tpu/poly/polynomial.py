@@ -1,6 +1,6 @@
 """Polynomial operations in coefficient form (device).
 
-TPU-native equivalents of the reference's `Polynomial<F>`
+Batched device equivalents of the reference's `Polynomial<F>`
 (reference: src/polynomial.rs): a polynomial is a digit array [D, ..., n]
 with the coefficient axis last.  FFT-based multiplication, batched Horner /
 inner-product evaluation, `divide_by_z_h` via the coset trick
@@ -94,13 +94,13 @@ def divide_by_z_h(spec: FieldSpec, coeffs: jnp.ndarray, n: int) -> jnp.ndarray:
 def divide_by_z_h_t(spec: FieldSpec, coeffs: jnp.ndarray, n: int,
                     zh_inv: jnp.ndarray, *flat) -> jnp.ndarray:
     """divide_by_z_h with the 1/Z_H values and FFT twiddles as runtime
-    buffers (`flat` = forward tables then inverse tables, each lg(N)+1
-    long) -- keeps the traced program free of [D, N] constants."""
+    buffers (`flat` = forward tables then inverse tables, N_TABLES each)
+    -- keeps the traced program free of [D, N] constants."""
+    from .fft import N_TABLES as k
     from .fft import coset_fft_t, coset_ifft_t
     N = coeffs.shape[-1]
     shift = spec.generator
     pre = FftPrecomputation(spec, N)
-    k = pre.lg_n + 1
     assert len(flat) == 2 * k
     values = coset_fft_t(pre, coeffs, shift, *flat[:k])
     invb = zh_inv.reshape((spec.n_digits,) + (1,) * (coeffs.ndim - 2) + (N,))

@@ -2,7 +2,7 @@
 
 The reference ships serde/CBOR round-trips for proofs and verification
 keys (reference: src/serialization.rs:74-155 serde impls, :157-329 CBOR
-round-trip + size tests).  This is the TPU framework's equivalent
+round-trip + size tests).  This is the framework's equivalent
 self-describing container; no third-party cbor package is assumed, so the
 needed subset (unsigned ints, byte strings, text strings, arrays, maps)
 is implemented directly.  Encoding is CANONICAL (RFC 8949 section 4.2):

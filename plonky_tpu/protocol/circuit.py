@@ -2,7 +2,7 @@
 and the build pipeline (reference: src/circuit_builder.rs:1078-1186).
 
 Device data layout: polynomial families are digit tensors [D, k, n] with the
-coefficient/domain axis last (TPU lanes).
+coefficient/domain axis last (contiguous).
 """
 
 from __future__ import annotations

@@ -76,9 +76,8 @@ def _scale_add_jit(spec):
 # ---------------------------------------------------------------------------
 # Weight-tracked IPA rounds.  The naive formulation folds the G basis every
 # round (u_inv*G_lo + u*G_hi): two 255-step batched double-and-add chains
-# per round, which dominated the on-chip prover (round-5 job 100: 15.6 s of
-# a 21.1 s degree-2^14 prove was prover.ipa) and compiled 14 distinct fold
-# graphs.  Instead the basis NEVER folds: original index k carries a
+# per round, which made the IPA most of a degree-2^14 prove and compiled 14
+# distinct fold graphs.  Instead the basis NEVER folds: original index k carries a
 # running weight w_k (the partial product of u_j / u_j_inv factors chosen
 # by bit j-1 of k -- exactly the halo_s tensor structure,
 # plonk_util.halo_s), and each round's

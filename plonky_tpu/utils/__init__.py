@@ -1,6 +1,6 @@
 """Small pure-host utilities.
 
-TPU-native re-implementation of the helpers in the reference's `src/util.rs`
+Re-implementation of the helpers in the reference's `src/util.rs`
 (ceil_div, log2, padding, transpose); behavioral parity, new code.
 """
 
@@ -74,6 +74,9 @@ def install_big_stack_compile(stack_bytes: int = 8 << 30) -> None:
     virtual and lazily paged, so the cost is address space only.
     Thread-per-compile costs ~ms against multi-second compiles.
 
+    Applies to the CPU backend only (the CPU test tier); elsewhere it is a
+    no-op.
+
     We wrap `compile_or_get_cached`, NOT just `backend_compile_and_load`:
     deserializing a persistent-cache HIT (`_cache_read` ->
     `get_executable_and_time`) recurses as deep as compiling does, and
@@ -86,6 +89,10 @@ def install_big_stack_compile(stack_bytes: int = 8 << 30) -> None:
     import threading
     import warnings
 
+    import jax
+
+    if jax.default_backend() != "cpu":
+        return
     try:
         import jax._src.compiler as _comp
     except ImportError:  # pragma: no cover - jax internals moved
@@ -195,4 +202,6 @@ def cached_jit(fn, *static):
         TRACE_COUNT[0] += 1
         return fn(*static, *args, **kwargs)
 
+    # the jitted program is named after fn (compile logs, profiler traces)
+    body.__name__ = body.__qualname__ = getattr(fn, "__name__", "body")
     return jax.jit(body)

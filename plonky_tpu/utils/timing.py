@@ -72,7 +72,7 @@ def phase(name: str):
 @contextlib.contextmanager
 def profiler_session():
     """Wrap a whole run in a jax profiler trace when PLONKY_PROFILE is set
-    (TPU-native replacement for the reference's RUST_LOG timing)."""
+    (replacement for the reference's RUST_LOG timing)."""
     if not _PROFILE_DIR:
         yield
         return

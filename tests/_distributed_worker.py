@@ -2,7 +2,7 @@
 
 Launched by tests/test_distributed.py with JAX_PROCESS_ID/JAX_NUM_PROCESSES/
 JAX_COORDINATOR_ADDRESS set.  Each process owns 4 virtual CPU devices; the
-global mesh spans 8 devices across the 2 processes (the DCN axis of
+global mesh spans 8 devices across the 2 processes (the process axis of
 parallel/distributed.py's hybrid_mesh).  Exercises a cross-process psum and
 the point-sharded MSM (parallel/msm.py) against a host oracle.
 """
@@ -35,15 +35,15 @@ assert mesh.devices.shape == (2, 4), mesh.devices.shape
 
 def local_sum(x):
     s = jnp.sum(x, keepdims=True)
-    return jax.lax.psum(jax.lax.psum(s, "ici"), "dcn")
+    return jax.lax.psum(jax.lax.psum(s, "local"), "proc")
 
 
 xs = np.arange(16, dtype=np.int32)
 x = jax.make_array_from_process_local_data(
-    NamedSharding(mesh, P(("dcn", "ici"))), xs[jax.process_index() * 8:
+    NamedSharding(mesh, P(("proc", "local"))), xs[jax.process_index() * 8:
                                                (jax.process_index() + 1) * 8])
-fn = jax.jit(shard_map(local_sum, mesh=mesh, in_specs=P(("dcn", "ici")),
-                       out_specs=P(("dcn", "ici"))))
+fn = jax.jit(shard_map(local_sum, mesh=mesh, in_specs=P(("proc", "local")),
+                       out_specs=P(("proc", "local"))))
 out = fn(x)
 total = int(np.asarray(jax.device_get(out.addressable_shards[0].data))[0])
 assert total == int(np.arange(16).sum()), total

@@ -5,7 +5,7 @@ identity-heavy scalar sets.
 
 Reference parity: the reference's only parallelism is rayon shared-memory
 (src/fft.rs:128-150, src/curve/curve_msm.rs:102-157); these tests cover
-the TPU-native replacement (SURVEY.md P1/P2/P8).
+the device-mesh replacement (SURVEY.md P1/P2/P8).
 """
 
 import jax

@@ -16,6 +16,7 @@ Regenerate (after a DELIBERATE protocol change only):
     PLONKY_WRITE_FIXTURES=1 python -m pytest tests/test_proof_fixture.py
 """
 
+import contextlib
 import os
 
 import numpy as np
@@ -35,16 +36,27 @@ from plonky_tpu.protocol.serialization import (
 FIXTURE_DIR = os.path.join(os.path.dirname(__file__), "fixtures")
 
 
-@pytest.fixture(autouse=True)
-def pinned_randomness(monkeypatch):
+@contextlib.contextmanager
+def pinned_rng():
+    """Replace the blinding/commitment randomness with a seeded stream, so
+    proofs are byte-deterministic; restores the real source on exit."""
     rng = np.random.default_rng(1337)
 
     def fake_random(p):
         return int.from_bytes(rng.bytes(40), "little") % p
 
-    monkeypatch.setattr(builder_mod, "RANDOM_SOURCE", fake_random)
-    monkeypatch.setattr(halo_mod, "RANDOM_SOURCE", fake_random)
-    yield
+    saved = builder_mod.RANDOM_SOURCE, halo_mod.RANDOM_SOURCE
+    builder_mod.RANDOM_SOURCE = halo_mod.RANDOM_SOURCE = fake_random
+    try:
+        yield
+    finally:
+        builder_mod.RANDOM_SOURCE, halo_mod.RANDOM_SOURCE = saved
+
+
+@pytest.fixture(autouse=True)
+def pinned_randomness():
+    with pinned_rng():
+        yield
 
 
 def _trivial_proof():
@@ -102,6 +114,10 @@ def _curve_add_gadget_proof():
     witness = circuit.generate_witness(PartialWitness())
     proof = generate_proof(circuit, witness, old_proofs=[], blinding=True)
     return circuit, proof, circuit.get_public_inputs(witness)
+
+
+FIXTURES = {"trivial": _trivial_proof, "sum_pi": _sum_pi_proof,
+            "curve_add": _curve_add_gadget_proof}
 
 
 def _assert_fixture(name: str, make_proof):

@@ -147,7 +147,7 @@ def test_proof_random_public_inputs():
 def test_second_proof_no_retrace():
     """Proof #2 of the same circuit must perform ZERO new jit traces: every
     protocol-path jit is cached and challenges enter as runtime columns
-    (VERDICT round 1: fresh jax.jit(lambda) objects defeated the cache)."""
+    (fresh jax.jit(lambda) objects would defeat the cache)."""
     from plonky_tpu.utils import TRACE_COUNT
 
     builder = CircuitBuilder(TWEEDLEDEE, security_bits=128)

@@ -1,4 +1,4 @@
-"""Full 2-level recursion cycle, CI'd (VERDICT r4 item 7).
+"""Full 2-level recursion cycle, CI'd.
 
 Level 0: trivial circuit over Tweedledum -> proof P0.
 Level 1: circuit over Tweedledee verifying P0 -> proof P1 (P0's linear
